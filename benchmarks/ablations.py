@@ -20,8 +20,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 def tablelog_ablation(corpus):
     """Fixed tableLog 11/12/13 vs adaptive (reference TestTableLogAblation)."""
-    from mic_tpu.ops.deltarle import delta_rle_compress
-    from mic_tpu.ops.fse_codec import fse_compress_4state
+    from mic.ops.deltarle import delta_rle_compress
+    from mic.ops.fse_codec import fse_compress_4state
 
     print("\n== tableLog ablation (Delta+RLE+FSE4 bytes) ==")
     print(f"{'Image':6} {'tl=11':>10} {'tl=12':>10} {'tl=13':>10} {'adaptive':>10}")
@@ -31,8 +31,8 @@ def tablelog_ablation(corpus):
         for tl in (11, 12, 13):
             # Fixed tableLog: bypass adaptation (patch the name the coder
             # resolves — fse_codec imported it into its own namespace).
-            from mic_tpu.ops import fse as F
-            from mic_tpu.ops import fse_codec as FC
+            from mic.ops import fse as F
+            from mic.ops import fse_codec as FC
 
             orig = FC.optimal_table_log
             FC.optimal_table_log = lambda hint, n, sl, _tl=tl: max(
@@ -52,19 +52,19 @@ def tablelog_ablation(corpus):
 def predictor_ablation(corpus):
     """left/avg/grad/MED ratio comparison (reference TestPredictorAblation;
     published geomeans: left 3.38 / avg 3.46 / MED 3.52)."""
-    from mic_tpu.models.single_frame import _fse_chain
-    from mic_tpu.ops.deltarle import (
+    from mic.models.single_frame import _fse_chain
+    from mic.ops.deltarle import (
         delta_rle_compress,
         grad_delta_rle_compress,
         zz_delta_rle_compress,
     )
-    from mic_tpu.ops.predictors import med_delta_compress
-    from mic_tpu.ops.rle import RleEncoder
-    from mic_tpu.ops.predictors import delta_params
+    from mic.ops.predictors import med_delta_compress
+    from mic.ops.rle import RleEncoder
+    from mic.ops.predictors import delta_params
 
     def med_rle(px, w, h, mx):
         # MED fused with RLE (the reference benches MED via the same fusion).
-        from mic_tpu.ops.predictors import predictor_encode
+        from mic.ops.predictors import predictor_encode
 
         thr, delim = delta_params(mx)
         stream = predictor_encode(px, w, h, mx, "med")
@@ -103,7 +103,7 @@ def predictor_ablation(corpus):
 
 def mict_sweep(corpus):
     """Device-format geometry sweep: lanes × strips vs ratio."""
-    from mic_tpu.tpu.strips import micw_compress
+    from mic.device.strips import micw_compress
 
     print("\n== MICW geometry sweep (ratio) ==")
     print(f"{'Image':6} " + " ".join(f"s{s}/L{l}".rjust(10) for s, l in SWEEP))
@@ -127,7 +127,7 @@ def entropy_family_ablation(corpus):
     both trial sets (docs/formats.md 'MICT alias-mapped')."""
     import math
 
-    from mic_tpu.tpu.strips import micw_compress
+    from mic.device.strips import micw_compress
 
     print("\n== MICW entropy family (ratio) ==")
     cols = [("auto-fast", "standard"), ("auto-fast", "alias"),
@@ -155,7 +155,7 @@ def r_margin_ablation(corpus):
     import math
     import os
 
-    from mic_tpu.tpu.strips import micw_compress
+    from mic.device.strips import micw_compress
 
     print("\n== MICW_R_MARGIN (auto-r/best ratio vs margin) ==")
     margins = ["0", "0.02", "0.05", "0.10", "0.25", "1.0"]
@@ -176,7 +176,7 @@ def r_margin_ablation(corpus):
 def table_memory_report():
     """FSE working-set: dynamic table sizing vs fixed (reference
     BenchmarkFSETableMemory; README 'symbolTT+stateTable ~4-8 KB typical')."""
-    from mic_tpu.ops.fse import build_ctable, build_dtable, histogram, normalize_count, optimal_table_log
+    from mic.ops.fse import build_ctable, build_dtable, histogram, normalize_count, optimal_table_log
 
     rng = np.random.default_rng(0)
     print("\n== FSE table working set ==")

@@ -26,7 +26,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 def _delta_bytes(px: np.ndarray, w: int, h: int) -> bytes:
     """Row-delta preprocessing used by the reference's Delta+Zstd baseline:
     ZigZag left-delta per row, little-endian bytes."""
-    from mic_tpu.ops.predictors import zigzag
+    from mic.ops.predictors import zigzag
 
     img = px.reshape(h, w).astype(np.int32)
     left = np.zeros_like(img)
@@ -65,8 +65,8 @@ def main() -> int:
     args = ap.parse_args()
 
     from benchmarks.run_benchmarks import load_corpus
-    from mic_tpu.models.single_frame import compress_single_frame_4state
-    from mic_tpu.utils import charls, j2k
+    from mic.models.single_frame import compress_single_frame_4state
+    from mic.utils import charls, j2k
 
     corpus = load_corpus(args.fast)
     baselines = _baselines()
@@ -119,9 +119,9 @@ def main() -> int:
         "\nNote: the reference's published comparison (paper Table 1) is vs "
         "Δ+Zstd-19 (+14% geomean for MIC), HTJ2K (parity) and JPEG-LS. "
         "JPEG-LS here is the system CharLS via ctypes "
-        "(mic_tpu/utils/charls.py — the in-image analog of the reference's "
+        "(mic/utils/charls.py — the in-image analog of the reference's "
         "charls_wrapper.cpp). J2K-R53 is lossless JPEG 2000 Part 1 via "
-        "OpenJPEG (mic_tpu/utils/j2k.py): the same reversible 5/3 wavelet "
+        "OpenJPEG (mic/utils/j2k.py): the same reversible 5/3 wavelet "
         "as the reference's OpenJPH HTJ2K column, with the EBCOT block "
         "coder, which losslessly compresses at least as well as HTJ2K's "
         "HT coder — a conservative stand-in for the HTJ2K ratio column "

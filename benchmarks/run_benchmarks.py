@@ -5,10 +5,9 @@ throughput tables (reference results format:
 results/<timestamp>/paper-tables.txt).
 
 Usage:
-    python benchmarks/run_benchmarks.py [--fast] [--device] [--out results.json]
+    python benchmarks/run_benchmarks.py [--fast] [--out results.json]
 
---fast limits to the small images; --device also times the TPU fused
-pipeline (requires exclusive access to the chip).
+--fast limits to the small images.  Device decode speed is bench.py's.
 """
 
 from __future__ import annotations
@@ -54,7 +53,7 @@ REFERENCE_RGB_RATIOS = {
 
 
 def load_rgb_corpus():
-    from mic_tpu.utils.dicom import read_dicom
+    from mic.utils.dicom import read_dicom
 
     out = []
     for name in RGB_CORPUS:
@@ -73,14 +72,14 @@ def load_rgb_corpus():
 def rgb_tables(results: dict) -> None:
     """Compress the NEMA RGB corpus through the RGB pipelines — the
     analog of the reference's rgbbench_test.go:44-184 suite."""
-    from mic_tpu.models.rgb import compress_rgb, decompress_rgb
-    from mic_tpu.parallel.wsi import (
+    from mic.models.rgb import compress_rgb, decompress_rgb
+    from mic.parallel.wsi import (
         WSIOptions,
         compress_wsi,
         decompress_wsi_region,
     )
-    from mic_tpu.tpu.rgb_device import micwr_compress, micwr_decompress_host
-    from mic_tpu.utils import charls
+    from mic.device.rgb_device import micwr_compress, micwr_decompress_host
+    from mic.utils import charls
 
     corpus = load_rgb_corpus()
     if not corpus:
@@ -152,7 +151,7 @@ def rgb_tables(results: dict) -> None:
 
 
 def load_corpus(fast: bool):
-    from mic_tpu.utils.dicom import read_dicom
+    from mic.utils.dicom import read_dicom
 
     out = []
     for name, spec in CORPUS:
@@ -200,33 +199,32 @@ def bench_variant(name, fn, px, w, h, mx, dec_fn, reps=1):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--fast", action="store_true")
-    ap.add_argument("--device", action="store_true")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
 
-    from mic_tpu.models.single_frame import (
+    from mic.models.single_frame import (
         compress_single_frame,
         compress_single_frame_4state,
         compress_single_frame_8state,
         compress_single_frame_rans8,
         decompress_single_frame,
     )
-    from mic_tpu.models.wavelet_pipeline import (
+    from mic.models.wavelet_pipeline import (
         wavelet_v2_rle_fse_compress,
         wavelet_v2_rle_fse_decompress,
     )
-    from mic_tpu.ops.gapremoval import (
+    from mic.ops.gapremoval import (
         compress_single_frame_gap_removal,
         decompress_single_frame_gap_removal,
     )
-    from mic_tpu.parallel.strips import (
+    from mic.parallel.strips import (
         compress_parallel_strips_4state,
         decompress_parallel_strips,
     )
-    from mic_tpu.tpu.strips import micw_compress, micw_decompress_host
+    from mic.device.strips import micw_compress, micw_decompress_host
 
     try:
-        from mic_tpu.native import (
+        from mic.native import (
             PRED_AVG,
             available as native_available,
             compress_frame_native,

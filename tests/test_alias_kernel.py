@@ -1,9 +1,9 @@
-"""Alias-bucket fused decode kernel (FF 41 streams).
+"""FF 41 (alias-mapped) streams through the device decode program.
 
-Bit-exactness of ``rans_decode_pallas_alias`` against the numpy tier:
-raw-symbols mode across table logs / alphabets / escape shares, and the
-fused zzd / vdd predictor-inverse modes.  Runs in interpret mode on CPU
-(the device_compiled gate covers the Mosaic-compiled kernel)."""
+Bit-exactness of the entropy kernel + escape substitution against the
+numpy tier: raw-symbols mode across table logs / alphabets / escape
+shares, and the zzd / vdd predictor-inverse post stages.  Runs in
+interpret mode on CPU (the gpu-marked tests cover the compiled kernel)."""
 
 import numpy as np
 import pytest
@@ -11,26 +11,32 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from mic_tpu.tpu import device_rans as dr  # noqa: E402
-from mic_tpu.tpu.pallas_rans import (  # noqa: E402
-    build_alias_bucket_tables,
-    rans_decode_pallas_alias,
+from mic.device import device_rans as dr  # noqa: E402
+from mic.device.rans_kernel import FlatStreams  # noqa: E402
+from mic.device.strips import (  # noqa: E402
+    _vdd_syms,
+    _zzd_syms,
+    entropy_decode,
+    post_decode,
 )
-from mic_tpu.tpu.strips import _vdd_syms, _zzd_syms  # noqa: E402
 
 
-def _decode_raw(parsed, vdd_ws=0, fused=False, ws_arr=None, esc=True):
-    S = len(parsed)
-    (init, w0, w1, w2, words, mask, shift, escv, esides, counts,
-     steps) = build_alias_bucket_tables(parsed)
-    ws = ws_arr if ws_arr is not None else np.zeros((S, 128), np.uint32)
-    out = rans_decode_pallas_alias(
-        jnp.asarray(init), jnp.asarray(w0), jnp.asarray(w1), jnp.asarray(w2),
-        jnp.asarray(words), jnp.asarray(mask), jnp.asarray(shift),
-        jnp.asarray(escv), jnp.asarray(esides), jnp.asarray(ws),
-        steps=steps, n_strips=S, vdd_ws=vdd_ws, fused=fused, esc=esc,
-    )
-    return np.asarray(out), counts
+def _decode_raw(parsed, predictor=None, width=0, esc=True):
+    """Entropy-decode ``parsed`` strips in one launch; with a direct
+    ``predictor`` the post stage inverts them to pixels."""
+    fs = FlatStreams(parsed)
+    syms = entropy_decode(
+        *fs.device_operands(), jnp.asarray(fs.esc_vals),
+        jnp.asarray(fs.esc_sides), n_steps=fs.n_steps,
+        escapes=esc and fs.has_escapes)
+    counts = fs.meta[:, 0]
+    if predictor is not None:
+        strip_h = int(counts[0]) // width
+        zeros = jnp.zeros(len(parsed), jnp.int32)
+        syms = post_decode(syms, zeros, zeros, zeros, width=width,
+                           strip_h=strip_h, max_runs=128, max_tokens=128,
+                           mid_count=0, delim=0, predictor=predictor)
+    return np.asarray(syms), counts
 
 
 def test_alias_kernel_raw_bit_exact():
@@ -67,15 +73,14 @@ def test_alias_kernel_fused_zzd():
         blob = dr.mict_encode_alias(syms, table_log=11)
         parsed.append(dr.mict_parse(blob))
         pixels.append(px)
-    ws = np.full((2, 128), width // 128, np.uint32)
-    out, counts = _decode_raw(parsed, fused=True, ws_arr=ws)
+    out, counts = _decode_raw(parsed, predictor="zzd", width=width)
     for i, px in enumerate(pixels):
         got = out[i].reshape(-1)[: counts[i]].astype(np.uint16)
         assert np.array_equal(got, px), f"strip {i}"
     # Escape-free variant (esc=False compiles the substitution out):
     # identical output when no strip has escapes.
     assert all(len(p[7][1]) == 0 for p in parsed)
-    out2, _ = _decode_raw(parsed, fused=True, ws_arr=ws, esc=False)
+    out2, _ = _decode_raw(parsed, predictor="zzd", width=width, esc=False)
     assert np.array_equal(out2, out)
 
 
@@ -87,17 +92,16 @@ def test_alias_kernel_fused_vdd():
     syms = _vdd_syms(px, width, sh)
     blob = dr.mict_encode_alias(syms, table_log=10)
     parsed = [dr.mict_parse(blob)]
-    ws = np.full((1, 128), width // 128, np.uint32)
-    out, counts = _decode_raw(parsed, vdd_ws=width // 128, fused=True, ws_arr=ws)
+    out, counts = _decode_raw(parsed, predictor="vdd", width=width)
     got = out[0].reshape(-1)[: counts[0]].astype(np.uint16)
     assert np.array_equal(got, px)
 
 
 def test_mict_decode_device_substitutes_escapes():
-    """Regression: the XLA scan single-blob decoder (decode.py) must
-    substitute FF 41 ESC placeholders like the numpy tier — it silently
-    returned esc_val at every escape position before."""
-    from mic_tpu.tpu.decode import mict_decode_device
+    """Regression: the single-blob device decoder must substitute FF 41
+    ESC placeholders like the numpy tier — an earlier decoder silently
+    returned esc_val at every escape position."""
+    from mic.device.rans_kernel import mict_decode_device
 
     rng = np.random.default_rng(5)
     base = np.minimum(rng.geometric(0.1, 6000), 40).astype(np.uint16)
@@ -113,9 +117,8 @@ def test_mict_decode_device_substitutes_escapes():
 
 
 def test_alias_kernel_shares_program_across_tls():
-    """The headline property: strips of DIFFERENT table logs decode in
-    ONE launch of one program (no tl static) — impossible for the
-    packed/two-table kernels."""
+    """Strips of DIFFERENT table logs decode in ONE launch of one
+    program (no tl static)."""
     rng = np.random.default_rng(3)
     parsed, expected = [], []
     for tl, n in [(9, 4000), (11, 6000), (12, 8000)]:
@@ -135,8 +138,8 @@ def test_device_alias_encode_byte_identity(rng):
     """mict_encode_device_batch(alias=True) must be byte-identical to the
     host alias encoder (incl. escape-folded streams), and
     micw_compress_device(entropy="alias") to the host container."""
-    from mic_tpu.tpu.pallas_enc import mict_encode_device_batch, micw_compress_device
-    from mic_tpu.tpu.strips import micw_compress
+    from mic.device.device_encode import mict_encode_device_batch, micw_compress_device
+    from mic.device.strips import micw_compress
 
     streams = []
     for n, alpha, esc in [(5000, 40, 0), (3000, 12, 0), (6000, 30, 0.1)]:
@@ -165,8 +168,8 @@ def test_micw_device_container_contract_defaults(rng):
     byte-for-byte WITHOUT explicit num_strips (default 128-row strips)
     and on dense wide-alphabet strips (host caps standard tl at 11,
     alias at 12 — the device batch must use the same caps)."""
-    from mic_tpu.tpu.pallas_enc import micw_compress_device
-    from mic_tpu.tpu.strips import micw_compress
+    from mic.device.device_encode import micw_compress_device
+    from mic.device.strips import micw_compress
 
     img = (rng.standard_normal((256, 512)).cumsum(axis=1) * 80 + 2000)
     px = img.clip(0, 4095).astype(np.uint16).ravel()

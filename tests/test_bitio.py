@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from mic_tpu.ops.bitio import (
+from mic.ops.bitio import (
     BitWriterLSB,
     BitWriterMSB,
     ForwardBitReader,

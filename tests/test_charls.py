@@ -7,7 +7,7 @@ import pathlib
 import numpy as np
 import pytest
 
-from mic_tpu.utils import charls
+from mic.utils import charls
 
 pytestmark = pytest.mark.skipif(
     not charls.available(), reason="libcharls not present"

@@ -2,21 +2,21 @@
 (wsi_test.go:229-886, multiframe_test.go:18-61, parallelstrips_test.go:82-148):
 tile content variants, odd-dimension downsampling, file-based round
 trips, YCoCg-R exhaustive sweeps, temporal-delta edges, and PICS header
-validation — the long tail VERDICT r3 flagged as thin."""
+validation — the long tail of container checks."""
 
 import struct
 
 import numpy as np
 import pytest
 
-from mic_tpu.ops.color import ycocgr_forward, ycocgr_inverse
-from mic_tpu.ops.pyramid import downsample2x_grey, downsample2x_rgb
-from mic_tpu.ops.predictors import temporal_delta_decode, temporal_delta_encode
-from mic_tpu.parallel.strips import (
+from mic.ops.color import ycocgr_forward, ycocgr_inverse
+from mic.ops.pyramid import downsample2x_grey, downsample2x_rgb
+from mic.ops.predictors import temporal_delta_decode, temporal_delta_encode
+from mic.parallel.strips import (
     compress_parallel_strips_4state,
     decompress_parallel_strips,
 )
-from mic_tpu.parallel.wsi import (
+from mic.parallel.wsi import (
     WSIOptions,
     compress_wsi,
     decompress_wsi_region,
@@ -157,7 +157,7 @@ def test_wsi_tile_no_color_transform(rng):
     exercises compressTileBlob directly because public WSIOptions
     force-enable the transform for RGB (wsiformat.go:92-94), exactly as
     ours do (TestWSITileCompressNoColorTransform wsi_test.go:454)."""
-    from mic_tpu.parallel.wsi import _compress_tile_blob, _decompress_tile_blob
+    from mic.parallel.wsi import _compress_tile_blob, _decompress_tile_blob
 
     img = rng.integers(0, 200, 32 * 32 * 3).astype(np.uint8)
     blob = _compress_tile_blob(img, 32, 32, 3, 8, False)
@@ -203,11 +203,11 @@ def test_wsi_file_roundtrip(tmp_path, rng):
 
 
 def test_mic1_file_roundtrip(tmp_path, mr_image):
-    from mic_tpu.models.single_frame import (
+    from mic.models.single_frame import (
         compress_single_frame_4state,
         decompress_single_frame,
     )
-    from mic_tpu.utils.io import read_mic1, write_mic1
+    from mic.utils.io import read_mic1, write_mic1
 
     px, h, w, mx = mr_image
     payload = compress_single_frame_4state(px, w, h, mx)
@@ -247,7 +247,7 @@ def test_pics_header_validation(mr_image):
 def test_mic2_many_frame_series(rng):
     """A longer series (16 frames) in both modes — the synthetic stand-in
     for the reference's 69-frame tomo DICOM (multiframe_test.go:292)."""
-    from mic_tpu.parallel.multiframe import (
+    from mic.parallel.multiframe import (
         compress_multi_frame,
         decompress_frame,
         decompress_multi_frame,

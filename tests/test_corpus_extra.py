@@ -11,7 +11,7 @@ def test_xa1_roundtrip(dicom_images):
     img = dicom_images["XA1_UNC"]
     px, h, w = img.pixels, img.rows, img.cols
     mx = img.max_value
-    from mic_tpu.models.single_frame import (
+    from mic.models.single_frame import (
         compress_single_frame_4state,
         decompress_single_frame,
     )
@@ -26,7 +26,7 @@ def test_us1_rgb_roundtrip(rgb_dicom):
     img = rgb_dicom
     h, w = img.rows, img.cols
     rgb = img.pixels.reshape(h, w, 3).astype(np.uint8)
-    from mic_tpu.models.rgb import compress_rgb, decompress_rgb
+    from mic.models.rgb import compress_rgb, decompress_rgb
 
     blob = compress_rgb(rgb, w, h)
     out = np.asarray(decompress_rgb(blob, w, h)).reshape(h, w, 3)
@@ -41,7 +41,7 @@ def test_us1_mwr3_beats_host_format(rgb_dicom):
     img = rgb_dicom
     h, w = img.rows, img.cols
     rgb = img.pixels.reshape(h, w, 3).astype(np.uint8)
-    from mic_tpu.tpu.rgb_device import micwr_compress, micwr_decompress_host
+    from mic.device.rgb_device import micwr_compress, micwr_decompress_host
 
     blob = micwr_compress(rgb.reshape(-1), w, h)
     out, ow, oh = micwr_decompress_host(blob)

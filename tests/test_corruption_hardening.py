@@ -11,15 +11,15 @@ below the stream buffer.
 import numpy as np
 import pytest
 
-from mic_tpu import native
-from mic_tpu.ops.deltarle import delta_rle_compress
-from mic_tpu.ops.fse_codec import (
+from mic import native
+from mic.ops.deltarle import delta_rle_compress
+from mic.ops.fse_codec import (
     fse_compress_4state,
     fse_decompress_4state,
     fse_decompress_auto,
 )
-from mic_tpu.ops.huffman import can_huffman_compress, can_huffman_decompress
-from mic_tpu.ops.rans import rans_compress_8state, rans_decompress_8state
+from mic.ops.huffman import can_huffman_compress, can_huffman_decompress
+from mic.ops.rans import rans_compress_8state, rans_decompress_8state
 
 needs_native = pytest.mark.skipif(
     not native.available(), reason="libmicfse.so not built"
@@ -110,7 +110,7 @@ def test_native_corrupt_rle_literal_run_no_overread(rng):
     mx = int(img.max())
     # Build an RLE stream then corrupt the final block header to claim a
     # huge literal run; re-encode through the entropy stage.
-    from mic_tpu.ops.deltarle import delta_rle_compress as drc
+    from mic.ops.deltarle import delta_rle_compress as drc
 
     rle = np.asarray(drc(img.ravel(), w, h, mx), dtype=np.uint16).copy()
     depth = max(mx.bit_length(), 1)
@@ -125,7 +125,7 @@ def test_native_corrupt_rle_literal_run_no_overread(rng):
 
 @needs_native
 def test_native_strips_bad_geometry_rejected(rng):
-    from mic_tpu.parallel.strips import compress_parallel_strips
+    from mic.parallel.strips import compress_parallel_strips
 
     img = (rng.standard_normal((64, 128)).cumsum(axis=1) * 18 + 1200).astype(np.int32)
     px = ((img >> 4) << 4).clip(0, 4095).astype(np.uint16).ravel()
@@ -149,7 +149,7 @@ def test_alias_corrupt_escape_stream_rejected(rng):
 
     import pytest
 
-    from mic_tpu.tpu import device_rans as dr
+    from mic.device import device_rans as dr
 
     base = np.minimum(rng.geometric(0.1, 4000), 40).astype(np.uint16)
     tail = rng.integers(0, 30000, 4000).astype(np.uint16)
@@ -187,7 +187,7 @@ def test_alias_forged_zero_escape_count_rejected(rng):
 
     import pytest
 
-    from mic_tpu.tpu import device_rans as dr
+    from mic.device import device_rans as dr
 
     base = np.minimum(rng.geometric(0.1, 4000), 40).astype(np.uint16)
     tail = rng.integers(0, 30000, 4000).astype(np.uint16)
@@ -204,8 +204,8 @@ def test_alias_forged_zero_escape_count_rejected(rng):
 def test_micw_truncated_banded_extension_rejected(rng):
     """A banded container truncated inside the 8-byte orig_w/orig_h
     extension (or inside the strip table) must raise ValueError, not
-    struct.error (ADVICE r3: consistency with the alias-header checks)."""
-    from mic_tpu.tpu.strips import (
+    struct.error (consistency with the alias-header checks)."""
+    from mic.device.strips import (
         MICW_HEADER,
         micw_band_info,
         micw_compress,

@@ -1,18 +1,18 @@
 """Device batch encoder ≡ host encoder for the adaptive trial sets.
 
-VERDICT r4 #2: the ratio-target family (auto-r + best) must device-
-encode byte-identically, so the archive-ingest path can default to it.
-The identity is structural — candidate generation and selection are the
+The ratio-target family (auto-r + best) must device-encode
+byte-identically, so the archive-ingest path can default to it.  The
+identity is structural — candidate generation and selection are the
 same code (strips._strip_candidates/_strip_select) — but these tests pin
-it end-to-end through the Pallas encode kernel (interpret mode here;
-the Mosaic-compiled equivalence rides tests/test_device_compiled.py).
+it end-to-end through the device encode scan (on the CPU here; the GPU
+run is in tests/test_device_compiled.py).
 """
 
 import numpy as np
 import pytest
 
-from mic_tpu.tpu.pallas_enc import micw_compress_device_many
-from mic_tpu.tpu.strips import micw_compress, micw_decompress_host
+from mic.device.device_encode import micw_compress_device_many
+from mic.device.strips import micw_compress, micw_decompress_host
 
 
 @pytest.fixture(scope="module")

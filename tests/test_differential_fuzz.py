@@ -12,8 +12,8 @@ import zlib
 import numpy as np
 import pytest
 
-from mic_tpu import IncompressibleError, UseRLEError, native
-from mic_tpu.models.single_frame import (
+from mic import IncompressibleError, UseRLEError, native
+from mic.models.single_frame import (
     compress_single_frame,
     compress_single_frame_4state,
     compress_single_frame_8state,
@@ -101,7 +101,7 @@ def test_fuzz_native_frame_byte_identity(dist, shape):
 def test_fuzz_entropy_native_identity(n_states, alphabet):
     """Random zipf-ish symbol streams: python and native entropy blobs
     byte-identical for every state count; roundtrip bit-exact."""
-    from mic_tpu.ops.fse_codec import (
+    from mic.ops.fse_codec import (
         fse_compress,
         fse_compress_2state,
         fse_compress_4state,
@@ -126,7 +126,7 @@ def test_fuzz_entropy_native_identity(n_states, alphabet):
 
 
 def test_fuzz_rans8_roundtrip():
-    from mic_tpu.ops.rans import rans_compress_8state, rans_decompress_8state
+    from mic.ops.rans import rans_compress_8state, rans_decompress_8state
 
     for alphabet in (2, 300, 5000):
         r = np.random.default_rng(alphabet)
@@ -145,7 +145,7 @@ def test_fuzz_pics_native_pool_identity(dist):
     """Whole-container PICS encode on the native thread pool must stay
     byte-identical to the Python per-strip assembly on random inputs,
     and the threaded decode bit-exact."""
-    from mic_tpu.parallel.strips import compress_parallel_strips_4state
+    from mic.parallel.strips import compress_parallel_strips_4state
 
     w, h = 96, 120
     px, mx = gen_image(dist, w, h, seed=_seed("pics", dist))
@@ -166,7 +166,7 @@ def test_fuzz_pics_native_pool_identity(dist):
 def test_fuzz_micw_host_roundtrip(entropy, dist):
     """Device-format MICW host encode/decode round-trips random inputs
     for every entropy family."""
-    from mic_tpu.tpu.strips import micw_compress, micw_decompress_host
+    from mic.device.strips import micw_compress, micw_decompress_host
 
     w, h = 128, 64
     px, mx = gen_image(dist, w, h, seed=_seed("micw", entropy, dist))
@@ -220,8 +220,8 @@ def test_fuzz_lane_encode_native_equals_numpy(monkeypatch, alphabet, tl):
     """The native MICT lane encoder (magic-multiply division) must match
     the numpy reference loop word-for-word and state-for-state across
     skews that exercise the whole normalized-frequency range."""
-    from mic_tpu.ops.fse import histogram, optimal_table_log
-    from mic_tpu.tpu.device_rans import (
+    from mic.ops.fse import histogram, optimal_table_log
+    from mic.device.device_rans import (
         _lane_encode,
         _norm_and_header,
         device_tables,
@@ -239,7 +239,7 @@ def test_fuzz_lane_encode_native_equals_numpy(monkeypatch, alphabet, tl):
         pytest.skip("stream not normalizable at this tableLog (documented)")
     sym64 = raw.astype(np.int64)
     st_n, w_n = _lane_encode(sym64, len(raw), 128, tl, freq, cumul)
-    monkeypatch.setattr("mic_tpu.native.lane_encode_native",
+    monkeypatch.setattr("mic.native.lane_encode_native",
                         lambda *a, **k: None)
     st_p, w_p = _lane_encode(sym64, len(raw), 128, tl, freq, cumul)
     assert np.array_equal(np.asarray(st_n, np.uint64),
@@ -248,7 +248,7 @@ def test_fuzz_lane_encode_native_equals_numpy(monkeypatch, alphabet, tl):
 
 
 def test_fuzz_huffman_roundtrip():
-    from mic_tpu.ops.huffman import can_huffman_compress, can_huffman_decompress
+    from mic.ops.huffman import can_huffman_compress, can_huffman_decompress
 
     for alphabet in (2, 100, 3000):
         r = np.random.default_rng(alphabet * 3)

@@ -38,7 +38,7 @@ GOLDEN = {
     # round 3 (honest-throughput retune): encoder tableLog cap 12 -> 11
     # (+54% measured decode for -1.8% ratio); decoder still reads tl<=12.
     "micw_banded": "3c291679257714b6",
-    # round 4: FF 41 alias-mapped entropy family pinned (VERDICT r3 #9).
+    # FF 41 alias-mapped entropy family pinned.
     "micw_alias": "08c95a5056ba52b7",
     # v6 (round 5): FLAG_RDENSE — r-mode strips use the dense run
     # grammar (soa_encode min_same=16, balanced long-run splits) so the
@@ -67,22 +67,22 @@ def _h(b: bytes) -> str:
 
 def _encode(name, fixture_data):
     px, mx, sym, f2, rgb = fixture_data
-    import mic_tpu
-    from mic_tpu.models import rgb as rgbm
-    from mic_tpu.models import wavelet_pipeline as wp
-    from mic_tpu.ops import gapremoval, huffman
-    from mic_tpu.parallel import multiframe, strips, strips_adaptive, wsi
-    from mic_tpu.tpu import strips as micw
+    import mic
+    from mic.models import rgb as rgbm
+    from mic.models import wavelet_pipeline as wp
+    from mic.ops import gapremoval, huffman
+    from mic.parallel import multiframe, strips, strips_adaptive, wsi
+    from mic.device import strips as micw
 
     return {
-        "fse1": lambda: mic_tpu.fse_compress(sym),
-        "fse2": lambda: mic_tpu.fse_compress_2state(sym),
-        "fse4": lambda: mic_tpu.fse_compress_4state(sym),
-        "fse8": lambda: mic_tpu.fse_compress_8state(sym),
-        "rans8": lambda: mic_tpu.rans_compress_8state(sym),
+        "fse1": lambda: mic.fse_compress(sym),
+        "fse2": lambda: mic.fse_compress_2state(sym),
+        "fse4": lambda: mic.fse_compress_4state(sym),
+        "fse8": lambda: mic.fse_compress_8state(sym),
+        "rans8": lambda: mic.rans_compress_8state(sym),
         "huffman": lambda: huffman.can_huffman_compress(sym),
-        "single_frame_2s": lambda: mic_tpu.compress_single_frame(px, 64, 48, mx),
-        "single_frame_grad": lambda: mic_tpu.compress_single_frame_grad(px, 64, 48, mx),
+        "single_frame_2s": lambda: mic.compress_single_frame(px, 64, 48, mx),
+        "single_frame_grad": lambda: mic.compress_single_frame_grad(px, 64, 48, mx),
         "gap": lambda: gapremoval.compress_single_frame_gap_removal(px, 64, 48, mx),
         "wavelet_v2": lambda: wp.wavelet_v2_rle_fse_compress(px, 48, 64, mx, 3),
         "pics": lambda: strips.compress_parallel_strips(px, 64, 48, mx, 2),

@@ -5,7 +5,7 @@ edge cases for every state count, mirroring the reference quartets
 import numpy as np
 import pytest
 
-from mic_tpu.ops.fse import (
+from mic.ops.fse import (
     IncompressibleError,
     UseRLEError,
     histogram,
@@ -14,7 +14,7 @@ from mic_tpu.ops.fse import (
     read_ncount,
     write_count,
 )
-from mic_tpu.ops.fse_codec import (
+from mic.ops.fse_codec import (
     MAGIC_2STATE,
     MAGIC_4STATE,
     MAGIC_8STATE_FSE,
@@ -29,7 +29,7 @@ from mic_tpu.ops.fse_codec import (
     fse_decompress_8state,
     fse_decompress_auto,
 )
-from mic_tpu.ops.rans import rans_compress_8state, rans_decompress_8state
+from mic.ops.rans import rans_compress_8state, rans_decompress_8state
 
 CODECS = [
     (fse_compress, fse_decompress, None),

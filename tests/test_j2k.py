@@ -1,14 +1,14 @@
 """JPEG 2000 comparison-baseline tests — the analog of the reference's
 in-process HTJ2K validation (ojph/htj2k_fair_comparison_test.go,
 ojph_wrapper.cpp).  Uses OpenJPEG Part-1 reversible 5/3 (same wavelet
-as the reference's HTJ2K configuration; see mic_tpu/utils/j2k.py)."""
+as the reference's HTJ2K configuration; see mic/utils/j2k.py)."""
 
 import pathlib
 
 import numpy as np
 import pytest
 
-from mic_tpu.utils import j2k
+from mic.utils import j2k
 
 pytestmark = pytest.mark.skipif(
     not j2k.available(), reason="Pillow JPEG2000 codec not present"

@@ -1,4 +1,4 @@
-"""Multi-chip sharding tests on the virtual 8-device CPU mesh:
+"""Multi-device sharding tests on the virtual 8-device CPU mesh:
 the strip axis shards with shard_map and decodes exactly
 (SURVEY.md §5: strips/tiles/frames become sharded batch axes)."""
 
@@ -36,185 +36,87 @@ def test_entry_compiles_and_runs():
 
 
 def test_sharded_pallas_decode():
-    """Fused Pallas kernel under shard_map on an 8-device CPU mesh."""
+    """The decode program (entropy kernel + post stages) under shard_map
+    on an 8-device CPU mesh, one zzd strip per device."""
     import jax
-    import jax.numpy as jnp
 
-    from mic_tpu.tpu.mesh import decode_strips_sharded_pallas, make_strip_mesh
-    from mic_tpu.tpu.pallas_rans import build_packed_tables
-    from mic_tpu.tpu.strips import micw_compress, micw_parse
-    from mic_tpu.tpu.device_rans import mict_parse
+    from mic.device.device_rans import mict_parse
+    from mic.device.mesh import decode_strips_sharded, make_strip_mesh
+    from mic.device.strips import micw_compress, micw_parse, strip_group_operands
 
     devs = jax.devices()[:8]
     if len(devs) < 8:
-        import pytest
-
         pytest.skip("needs 8 virtual devices")
     rng = np.random.default_rng(5)
     img = (rng.standard_normal((64, 128)).cumsum(axis=1) * 9 + 700).astype(np.int32)
     px = img.clip(0, 4095).astype(np.uint16).ravel()
     blob = micw_compress(px, 128, 64, int(px.max()), num_strips=8, lanes=128,
                          predictor="zzd")
-    width, height, ns, sh, *_ , strips = micw_parse(blob)
+    width, height, ns, sh, mv, _gp, _l, strips = micw_parse(blob)
     parsed = [mict_parse(st[0]) for st in strips]
-    tl = max(p[1] for p in parsed)
-    packed = build_packed_tables(parsed, tl)
-    assert packed is not None
-    init, tpk, alpha, words, mask, shift, counts, steps, asweep = packed
-    ws = np.full((len(parsed), 128), width // 128, np.uint32)
-    mesh = make_strip_mesh(devs)
-    out = decode_strips_sharded_pallas(
-        mesh, *[jnp.asarray(a) for a in (init, tpk, alpha, words, mask, shift, ws)],
-        steps=steps, n_strips=1, table_log=tl, asweep=asweep,
-    )
-    got = np.asarray(out).reshape(ns, -1)
+    arrays, static = strip_group_operands(parsed, strips, "zzd", width, sh, mv)
+    out = decode_strips_sharded(make_strip_mesh(devs), *arrays, **static)
+    got = np.asarray(out)
     for i in range(ns):
         assert np.array_equal(got[i][: sh * width], px[i * sh * width : (i + 1) * sh * width])
+
+
+def _encode_check(alias):
+    import jax
+
+    if len(jax.devices()) < 8:
+        pytest.skip("need 8 devices")
+    import __graft_entry__ as ge
+    from mic.device.device_encode import rans_encode_scan
+    from mic.device.mesh import encode_strips_sharded, make_strip_mesh
+
+    args = ge.encode_operands(np.random.default_rng(21), 8, n=4096, alias=alias)
+    ref = rans_encode_scan(*args, lanes=128)
+    got = encode_strips_sharded(make_strip_mesh(jax.devices()[:8]), *args, lanes=128)
+    for a, b in zip(ref, got):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_sharded_encode():
     """Device encode under shard_map: sharded outputs == single-program
     outputs, strip axis split across the 8-device CPU mesh."""
-    import jax
-    import jax.numpy as jnp
-
-    if len(jax.devices()) < 8:
-        pytest.skip("need 8 devices")
-    from mic_tpu.ops.fse import histogram, normalize_count, optimal_table_log
-    from mic_tpu.tpu.device_rans import device_tables
-    from mic_tpu.tpu.mesh import encode_strips_sharded, make_strip_mesh
-    from mic_tpu.tpu.pallas_enc import build_enc_tables, rans_encode_pallas
-
-    rng = np.random.default_rng(21)
-    S = 8
-    n = 4096
-    specs, rks, cnts, tls_l = [], [], [], []
-    for s in range(S):
-        syms = (rng.standard_normal(n) * 12 + 80).clip(0, 511).astype(np.uint16)
-        counts, _mc, sl = histogram(syms)
-        tl = min(optimal_table_log(11, n, sl), 11)
-        norm = normalize_count(counts, n, tl, sl)
-        _sym, _fs, _bs, freq, cumul = device_tables(norm, tl)
-        alpha = np.nonzero(freq)[0]
-        lut = np.zeros(65536, np.uint16)
-        lut[alpha] = np.arange(len(alpha), dtype=np.uint16)
-        specs.append((freq[alpha].astype(np.uint32), cumul[alpha].astype(np.uint32)))
-        rks.append(lut[syms])
-        cnts.append(n)
-        tls_l.append(tl)
-    steps = (-(-n // 128) + 7) // 8 * 8
-    te1, te2, asweep = build_enc_tables(specs, 11)
-    rk = np.zeros((S, steps * 128), np.uint16)
-    cnt = np.zeros((S, 128), np.uint32)
-    tls = np.zeros((S, 128), np.uint32)
-    for i in range(S):
-        rk[i, : len(rks[i])] = rks[i]
-        cnt[i, :] = cnts[i]
-        tls[i, :] = tls_l[i]
-    args = (jnp.asarray(rk.reshape(S, steps, 128)), jnp.asarray(te1),
-            jnp.asarray(te2), jnp.asarray(cnt), jnp.asarray(tls))
-    kw = dict(steps=steps, asweep=asweep)
-    ref = rans_encode_pallas(*args, n_strips=S, **kw)
-    mesh = make_strip_mesh(jax.devices()[:8])
-    got = encode_strips_sharded(mesh, *args, **kw)
-    for a, b in zip(ref, got):
-        assert np.array_equal(np.asarray(a), np.asarray(b))
+    _encode_check(alias=False)
 
 
 def test_sharded_alias_decode():
-    """Alias-bucket (FF 41) kernel under shard_map, MIXED table logs in
-    one sharded executable (no tl static)."""
+    """FF 41 strips of MIXED table logs under shard_map in one sharded
+    executable (no tableLog static)."""
     import jax
-    import jax.numpy as jnp
 
-    from mic_tpu.tpu.device_rans import mict_encode_alias, mict_parse
-    from mic_tpu.tpu.mesh import decode_alias_sharded, make_strip_mesh
-    from mic_tpu.tpu.pallas_rans import build_alias_bucket_tables
+    from mic.device.device_rans import mict_encode_alias, mict_parse
+    from mic.device.mesh import decode_strips_sharded, make_strip_mesh
+    from mic.device.strips import _zzd_syms, strip_group_operands
 
     devs = jax.devices()[:8]
     if len(devs) < 8:
-        import pytest
-
         pytest.skip("needs 8 virtual devices")
     rng = np.random.default_rng(9)
-    # Alternate stream shapes so optimal_table_log lands on DIFFERENT
-    # table logs (2048/alpha-400 -> tl 8, 8192/alpha-60 -> tl 10).
-    shapes = [(2048, 400, 9), (8192, 60, 10)]
-    datas, parsed = [], []
+    width, strip_h = 128, 64
+    pixels, parsed, strips = [], [], []
     for s in range(8):
-        n, alpha, req = shapes[s % 2]
-        d = np.minimum(rng.geometric(2.0 / alpha, n), alpha).astype(np.uint16)
-        datas.append(d)
-        parsed.append(mict_parse(mict_encode_alias(d, table_log=req)))
+        rows = strip_h if s % 2 == 0 else 16  # 8192 vs 2048 symbols
+        img = (rng.standard_normal((rows, width)).cumsum(axis=1) * 9 + 700)
+        px = img.clip(0, 4095).astype(np.uint16).ravel()
+        syms = _zzd_syms(px, width, rows)
+        blob = mict_encode_alias(syms, table_log=11)
+        pixels.append(px)
+        parsed.append(mict_parse(blob))
+        strips.append((blob, len(syms), len(syms), 0, 0, 2))
     assert len({p[1] for p in parsed}) > 1
-    (init, w0, w1, w2, words, mask, shift, escv, esides, _counts,
-     steps) = build_alias_bucket_tables(parsed)
-    ws = np.zeros((8, 128), np.uint32)
-    mesh = make_strip_mesh(devs)
-    out = decode_alias_sharded(
-        mesh,
-        *[jnp.asarray(a) for a in (init, w0, w1, w2, words, mask, shift,
-                                   escv, esides, ws)],
-        steps=steps, vdd_ws=0, fused=False,
-    )
+    arrays, static = strip_group_operands(parsed, strips, "zzd", width,
+                                          strip_h, 4095)
+    out = decode_strips_sharded(make_strip_mesh(devs), *arrays, **static)
     got = np.asarray(out)
-    for s, d in enumerate(datas):
-        assert np.array_equal(got[s].reshape(-1)[: len(d)], d)
+    for i, px in enumerate(pixels):
+        assert np.array_equal(got[i][: len(px)], px)
 
 
 def test_sharded_alias_encode():
-    """rans_encode_pallas_alias under shard_map must equal the
-    single-program kernel bit for bit."""
-    import jax
-    import jax.numpy as jnp
-
-    from mic_tpu.ops.fse import histogram, normalize_count, optimal_table_log
-    from mic_tpu.tpu.device_rans import alias_construct, device_tables
-    from mic_tpu.tpu.mesh import encode_alias_sharded, make_strip_mesh
-    from mic_tpu.tpu.pallas_enc import (
-        build_enc_tables,
-        rans_encode_pallas_alias,
-    )
-
-    devs = jax.devices()[:8]
-    if len(devs) < 8:
-        import pytest
-
-        pytest.skip("needs 8 virtual devices")
-    rng = np.random.default_rng(21)
-    n_e, S = 1024, 8
-    specs, rks, runs = [], [], []
-    for _s in range(S):
-        syms = (rng.standard_normal(n_e) * 9 + 60).clip(0, 255).astype(np.uint16)
-        counts, _mc, sl = histogram(syms)
-        tl = min(optimal_table_log(11, n_e, sl), 11)
-        norm = normalize_count(counts, n_e, tl, sl)
-        _sy, _fs, _bs, freq, cumul = device_tables(norm, tl)
-        al = alias_construct(norm, tl)
-        alpha = np.nonzero(freq)[0]
-        lut = np.zeros(65536, np.uint16)
-        lut[alpha] = np.arange(len(alpha), dtype=np.uint16)
-        specs.append((freq[alpha].astype(np.uint32), cumul[alpha].astype(np.uint32)))
-        rks.append((lut[syms], tl))
-        runs.append(al["enc_runs"])
-    steps = (-(-n_e // 128) + 7) // 8 * 8
-    te1, te2, asweep = build_enc_tables(specs, 11)
-    rk = np.zeros((S, steps * 128), np.uint16)
-    tls = np.zeros((S, 128), np.uint32)
-    ar1 = np.full((S, 256), 0xFFFFFFFF, np.uint32)
-    ar2 = np.zeros((S, 256), np.uint32)
-    for i, ((r, tl_i), (st, ba)) in enumerate(zip(rks, runs)):
-        rk[i, :n_e] = r
-        tls[i, :] = tl_i
-        ar1[i, : len(st)] = st
-        ar2[i, : len(ba)] = ba
-    cnt = np.full((S, 128), n_e, np.uint32)
-    args = (jnp.asarray(rk.reshape(S, steps, 128)), jnp.asarray(te1),
-            jnp.asarray(te2), jnp.asarray(ar1.reshape(S, 2, 128)),
-            jnp.asarray(ar2.reshape(S, 2, 128)), jnp.asarray(cnt),
-            jnp.asarray(tls))
-    ref = rans_encode_pallas_alias(*args, steps=steps, n_strips=S, asweep=asweep)
-    got = encode_alias_sharded(make_strip_mesh(devs), *args,
-                               steps=steps, asweep=asweep)
-    for a, b in zip(ref, got):
-        assert np.array_equal(np.asarray(a), np.asarray(b))
+    """FF 41 alias permutations through the sharded encode must equal the
+    single-program encode bit for bit."""
+    _encode_check(alias=True)

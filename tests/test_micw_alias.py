@@ -1,24 +1,21 @@
 """MICW containers with alias-mapped (FF 41) entropy strips.
 
-``micw_compress(..., entropy="alias")`` writes strips whose Pallas
-decode is tableLog-independent; every decode tier must agree bit-exactly
-with the pixels: host numpy, Pallas plan paths (micw_decode_many /
-micw_decompress_device_pallas), and the XLA scan paths
-(micw_decompress_device / micw_decode_batch) whose in-program escape
-substitution this file exercises."""
+``micw_compress(..., entropy="alias")`` writes FF 41 strips; every
+decode tier must agree bit-exactly with the pixels: the host numpy
+decoder and the device plan (micw_decode_many / micw_decompress_device),
+whose in-program escape substitution this file exercises."""
 
 import numpy as np
 import pytest
 
 pytest.importorskip("jax")
 
-from mic_tpu.tpu.device_rans import mict_parse  # noqa: E402
-from mic_tpu.tpu.strips import (  # noqa: E402
+from mic.device.device_rans import mict_parse  # noqa: E402
+from mic.device.strips import (  # noqa: E402
+    MicwDecodePlan,
     micw_compress,
-    micw_decode_batch,
     micw_decode_many,
     micw_decompress_device,
-    micw_decompress_device_pallas,
     micw_decompress_host,
     micw_parse,
     strip_predictor,
@@ -48,12 +45,11 @@ def test_alias_container_all_tiers(rng, pred):
     parsed = [mict_parse(st[0]) for st in micw_parse(blob)[7]
               if strip_predictor(micw_parse(blob)[5], st[5]) is not None]
     assert all(p[7] is not None for p in parsed), "strips must be FF 41"
-    for fn in (micw_decompress_host, micw_decompress_device_pallas,
-               micw_decompress_device):
+    for fn in (micw_decompress_host, micw_decompress_device):
         out, ww, hh = fn(blob)
         assert (ww, hh) == (w, h)
         assert np.array_equal(out, px), fn.__name__
-    assert np.array_equal(micw_decode_batch([blob])[0], px)
+    assert np.array_equal(micw_decode_many([blob, blob])[1][0], px)
 
 
 def test_alias_escape_folding_roundtrip(rng):
@@ -67,16 +63,15 @@ def test_alias_escape_folding_roundtrip(rng):
                 (mict_parse(st[0]) for st in micw_parse(blob)[7])
                 if p[7] is not None)
     assert n_esc > 0, "test content failed to trigger escape folding"
-    for fn in (micw_decompress_host, micw_decompress_device_pallas,
-               micw_decompress_device):
+    for fn in (micw_decompress_host, micw_decompress_device):
         out, _, _ = fn(blob)
         assert np.array_equal(out, px), fn.__name__
 
 
 def test_alias_fused_vdd_pdd_with_escapes(rng):
-    """Escape substitution inside the FUSED kernel paths (vdd prev-row
-    carry and pdd row-scan + outer cumsum), not just raw/zzd — spiky
-    vertical/plane-gradient content forces escape-folded avdd/apdd
+    """Escape substitution ahead of the vdd (column prefix sum) and pdd
+    (two prefix sums) inverses, not just raw/zzd — spiky
+    vertical/plane-gradient content forces escape-folded vdd/pdd
     strips."""
     h, w = 32, 256
     base = (np.arange(h)[:, None] * 37
@@ -94,13 +89,13 @@ def test_alias_fused_vdd_pdd_with_escapes(rng):
         assert ent, f"{pred}: every strip fell to raw"
         n_esc = sum(len(p[7][1]) for p in ent if p[7] is not None)
         assert n_esc > 0, f"{pred}: no escapes triggered"
-        out, _, _ = micw_decompress_device_pallas(blob)
+        out, _, _ = micw_decompress_device(blob)
         assert np.array_equal(out, px), pred
 
 
 def test_mixed_standard_alias_plan(rng):
-    """One MicwDecodePlan over standard and alias blobs: buckets must not
-    mix entropy families, outputs must all be exact."""
+    """One MicwDecodePlan over standard and alias blobs: both families
+    share the entropy launch, outputs must all be exact."""
     h, w = 48, 256
     px = _smooth(rng, h, w).ravel()
     mx = int(px.max())
@@ -121,7 +116,7 @@ def test_best_entropy_mixed_container(rng):
     b_al = micw_compress(px, w, h, mx, num_strips=2, entropy="alias")
     b_best = micw_compress(px, w, h, mx, num_strips=2, entropy="best")
     assert len(b_best) <= min(len(b_std), len(b_al)) + 8
-    for fn in (micw_decompress_host, micw_decompress_device_pallas):
+    for fn in (micw_decompress_host, micw_decompress_device):
         out, _, _ = fn(b_best)
         assert np.array_equal(out, px), fn.__name__
 
@@ -144,46 +139,40 @@ def test_best_keeps_wide_alphabet_alias_candidates(rng):
 
 def test_alias_encoder_caps_table_log_at_12():
     """Regression: optimal_table_log's density rule may bump past the
-    request; the alias encoder must hard-cap at 12 (the Pallas bucket
-    tables pack 12-bit freq/slot-base fields)."""
-    from mic_tpu.tpu.device_rans import mict_encode_alias, mict_parse
-    from mic_tpu.tpu.pallas_rans import build_alias_bucket_tables
+    request; the alias encoder must hard-cap at 12 (part of the FF 41
+    format)."""
+    from mic.device.device_rans import mict_encode_alias, mict_parse
+    from mic.device.rans_kernel import MAX_TABLE_LOG, FlatStreams
 
     lrng = np.random.default_rng(7)
     d = (lrng.standard_normal(131072) * 600 + 2000).clip(0, 4095).astype(np.uint16)
     p = mict_parse(mict_encode_alias(d, table_log=11))
     assert p[1] <= 12
-    build_alias_bucket_tables([p])  # must not raise
-    # Defensive check: a hand-rolled tl>12 parse is rejected, not
-    # silently mispacked.
-    import pytest as _pytest
-
-    bogus = (128, 13, p[2], p[3], p[4], p[5], p[6], p[7])
-    with _pytest.raises(ValueError, match="tableLog"):
-        build_alias_bucket_tables([bogus])
+    FlatStreams([p])  # must not raise
+    # Defensive check: a hand-rolled parse beyond the decoder's table
+    # packing is rejected, not silently mispacked.
+    bogus = (128, MAX_TABLE_LOG + 1, p[2], p[3], p[4], p[5], p[6], p[7])
+    with pytest.raises(ValueError, match="tableLog"):
+        FlatStreams([bogus])
 
 
 def test_alias_timed_runner(rng):
-    """The honest-bench harness (MicwDecodePlan.make_timed_runner) must
-    stage alias and best containers without falling back, and the
-    in-program verification must pass — the official A/B rides this."""
-    from mic_tpu.tpu.strips import MicwDecodePlan
-
+    """A staged plan (what the benchmark times) decodes alias and best
+    containers exactly on every run."""
     h, w = 32, 256
     px = _smooth(rng, h, w).ravel()
     for entropy in ("alias", "best"):
         blob = micw_compress(px, w, h, int(px.max()), num_strips=2,
                              entropy=entropy)
         plan = MicwDecodePlan([blob, blob])
-        runner = plan.make_timed_runner([px, px])
-        assert runner is not None, entropy
-        m, _p = runner(2)
-        assert int(m) == 0, entropy
+        for _ in range(2):
+            for out, _w, _h in plan.assemble(plan.run()):
+                assert np.array_equal(out, px), entropy
 
 
 def test_alias_ratio_within_one_pct(rng):
     """FF 41's alias layout preserves the normalized frequencies; with
-    tl=12 vs the packed cap 11, the alias blob lands within ~1% of the
+    tl=12 vs the FF 57 cap 11, the alias blob lands within ~1% of the
     standard blob (measured corpus cost: -0.68%)."""
     h, w = 128, 256
     px = _smooth(rng, h, w).ravel()
@@ -194,24 +183,21 @@ def test_alias_ratio_within_one_pct(rng):
 
 
 def test_replicated_plan_chunk_cycle_dedup(rng):
-    """Replicated plans whose strips-per-image period does NOT divide
-    the chunk size produce chunk operands that repeat in a short cycle
-    rather than all-identically (MR2: 6 strips/image over 32-entry
-    chunks -> period-3 cycle).  _stack_dev must dedup that cycle (one
-    h2d of the unique set + device gather) AND stay bit-exact: this
-    pins the decode through a replicated plan at such a geometry."""
-    from mic_tpu.tpu.strips import MicwDecodePlan
+    """Replicated plans share one copy of each distinct strip's table
+    and words (FlatStreams dedups by parse identity) and stay bit-exact
+    for every replica, at a strip count that fills no launch group."""
+    from mic.device.rans_kernel import FlatStreams
 
     h, w = 18, 256  # 3 strips/image at num_strips=3
     px = _smooth(rng, h, w).ravel()
     blob = micw_compress(px, w, h, int(px.max()), num_strips=3,
                          entropy="alias")
-    k = 22  # 3*22=66 entries over 32-entry chunks: period-3 key cycle
-    plan = MicwDecodePlan([blob] * k)
-    runner = plan.make_timed_runner([px] * k)
-    assert runner is not None
-    m, _p = runner(2)
-    assert int(m) == 0
+    k = 22  # 66 strips: not a multiple of the kernel's strip group
+    parsed = [mict_parse(st[0]) for st in micw_parse(blob)[7]]
+    one = FlatStreams(parsed)
+    many = FlatStreams(parsed * k)
+    assert len(many.words) == len(one.words)
+    assert len(many.tab_sym) == len(one.tab_sym)
     outs = micw_decode_many([blob] * k)
     for o in outs:
         assert np.array_equal(np.asarray(o[0]).ravel(), px)

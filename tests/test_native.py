@@ -5,10 +5,10 @@ the analog of the reference's Go-vs-C cross matrix
 import numpy as np
 import pytest
 
-from mic_tpu import native
+from mic import native
 
 pytestmark = pytest.mark.skipif(
-    not native.available(), reason="libmicfse.so not built (make -C mic_tpu/native)"
+    not native.available(), reason="libmicfse.so not built (make -C mic/native)"
 )
 
 
@@ -27,7 +27,7 @@ def ct(ct_image_module=None):
 def test_entropy_blob_byte_identity(n_states, ct, rng):
     """Native encoder must produce byte-identical streams to the Python
     tier for every state count."""
-    from mic_tpu.ops.fse_codec import (
+    from mic.ops.fse_codec import (
         fse_compress,
         fse_compress_2state,
         fse_compress_4state,
@@ -45,7 +45,7 @@ def test_entropy_blob_byte_identity(n_states, ct, rng):
 def test_four_way_cross_matrix(ct):
     """py-enc→native-dec, native-enc→py-dec, native-enc→native-dec,
     py-enc→py-dec all bit-exact on real CT."""
-    from mic_tpu.models.single_frame import compress_single_frame_4state, decompress_single_frame
+    from mic.models.single_frame import compress_single_frame_4state, decompress_single_frame
 
     px, w, h, mx = ct
     blob_py = compress_single_frame_4state(px, w, h, mx)
@@ -72,8 +72,8 @@ def test_native_predictor_roundtrips(kind, rng):
 
 def test_native_rans_decode(ct):
     """Native decoder handles the rANS-8 magic too."""
-    from mic_tpu.ops.rans import rans_compress_8state
-    from mic_tpu.ops.deltarle import delta_rle_compress
+    from mic.ops.rans import rans_compress_8state
+    from mic.ops.deltarle import delta_rle_compress
 
     px, w, h, mx = ct
     rle = delta_rle_compress(px, w, h, mx)
@@ -84,7 +84,7 @@ def test_native_rans_decode(ct):
 
 def test_native_corrupt_rejected(ct):
     px, w, h, mx = ct
-    from mic_tpu.models.single_frame import compress_single_frame
+    from mic.models.single_frame import compress_single_frame
 
     blob = bytearray(compress_single_frame(px, w, h, mx))
     blob[8] ^= 0xFF  # header corruption
@@ -94,8 +94,8 @@ def test_native_corrupt_rejected(ct):
 
 def test_native_strips_decode(rng):
     """Threaded native PICS decode matches the Python tier and pixels."""
-    from mic_tpu.native import available, decompress_strips_native
-    from mic_tpu.parallel.strips import compress_parallel_strips
+    from mic.native import available, decompress_strips_native
+    from mic.parallel.strips import compress_parallel_strips
 
     if not available():
         import pytest
@@ -116,7 +116,7 @@ def test_native_rle_amplification_bounded():
     token-count check ran)."""
     import time
 
-    from mic_tpu.native import (
+    from mic.native import (
         available,
         decompress_frame_native,
         entropy_compress_native,
@@ -142,8 +142,8 @@ def test_native_rle_amplification_bounded():
 def test_native_lane_encode_bit_identity(rng):
     """mic_lane_encode must mirror the numpy _lane_encode bit for bit
     for both the standard (FF 57) and alias (FF 41) slot layouts."""
-    import mic_tpu.native as native
-    from mic_tpu.tpu import device_rans as dr
+    import mic.native as native
+    from mic.device import device_rans as dr
 
     if not native.available() or not hasattr(native._load(), "mic_lane_encode"):
         import pytest
@@ -168,8 +168,8 @@ def test_native_normalize_write_count_bit_identity(rng):
     """mic_normalize_write_count must reproduce the Python
     normalize_count + write_count pair exactly across distribution
     shapes (incl. the normalizeCount2 fallback)."""
-    from mic_tpu.native import _load, available, normalize_write_count_native
-    from mic_tpu.ops.fse import (
+    from mic.native import _load, available, normalize_write_count_native
+    from mic.ops.fse import (
         histogram,
         normalize_count,
         optimal_table_log,
@@ -223,8 +223,8 @@ def test_noise_rejected_not_hung():
     cleanly (regression: round-4 native encode rework)."""
     import pytest
 
-    from mic_tpu.models.single_frame import compress_single_frame_4state
-    from mic_tpu.native import PRED_AVG, available, compress_frame_native
+    from mic.models.single_frame import compress_single_frame_4state
+    from mic.native import PRED_AVG, available, compress_frame_native
 
     rng = np.random.default_rng(0)
     arr = rng.integers(0, 65536, 256).astype(np.uint16)
@@ -249,7 +249,7 @@ def test_worker_pool_dispatch_subprocess():
 import sys, threading
 sys.path.insert(0, %r)
 import numpy as np
-from mic_tpu import native
+from mic import native
 r = np.random.default_rng(1)
 px = (r.standard_normal(512*256)*300 + 1000).clip(0, 4095).astype(np.uint16)
 blob = native.compress_strips_native(px, 512, 256, int(px.max()),
@@ -281,9 +281,8 @@ print("POOL_OK")
 
 
 def test_compress_frame_kind_states_keyword_only(rng):
-    """The API footgun that once produced a retracted perf claim
-    (ROUND4_NOTES #8): compress_frame_native(px, w, h, mv, 4) passed 4
-    as the PREDICTOR.  kind/n_states are keyword-only now and invalid
+    """The API footgun that once produced a retracted perf claim:
+    compress_frame_native(px, w, h, mv, 4) passed 4 as the PREDICTOR.  kind/n_states are keyword-only now and invalid
     values raise descriptive errors instead of a silent failure path."""
     img = (rng.standard_normal((16, 16)).cumsum(axis=1) * 20 + 500).clip(
         0, 1023

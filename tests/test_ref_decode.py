@@ -1,25 +1,25 @@
 """End-to-end device decode of reference containers (MIC1 / PICS).
 
-Pins tpu.ref_decode against the host tier: same blobs, bit-exact
+Pins device.ref_decode against the host tier: same blobs, bit-exact
 pixels, across predictor pipelines, state counts, and strip layouts.
 """
 
 import numpy as np
 import pytest
 
-from mic_tpu.models.single_frame import (
+from mic.models.single_frame import (
     compress_single_frame,
     compress_single_frame_4state,
     compress_single_frame_8state,
     compress_single_frame_grad,
     decompress_single_frame,
 )
-from mic_tpu.parallel.strips import (
+from mic.parallel.strips import (
     compress_parallel_strips_4state,
     compress_parallel_strips_8state,
     decompress_parallel_strips,
 )
-from mic_tpu.tpu.ref_decode import (
+from mic.device.ref_decode import (
     decompress_frames_device,
     decompress_pics_device,
     decompress_pics_device_many,
@@ -97,8 +97,8 @@ def test_unsupported_kind_raises(rng):
 def test_mic2_device_independent(rng):
     """Reference-format MIC2 (independent mode): all frames' entropy
     stages pool on device; bit-exact vs the host container decode."""
-    from mic_tpu.parallel.multiframe import compress_multi_frame, decompress_multi_frame
-    from mic_tpu.tpu.ref_decode import decompress_mic2_device, decompress_mic2_frame_device
+    from mic.parallel.multiframe import compress_multi_frame, decompress_multi_frame
+    from mic.device.ref_decode import decompress_mic2_device, decompress_mic2_frame_device
 
     frames = [_image(rng, 48, 64) for _ in range(4)]
     blob = compress_multi_frame(frames, 64, 48, int(max(f.max() for f in frames)), temporal=False)
@@ -114,8 +114,8 @@ def test_mic2_device_independent(rng):
 def test_mic2_device_temporal(rng):
     """Temporal MIC2 (multiframecompress.go:190-200): residual frames
     batch with frame 0's spatial decode; the add chain matches the host."""
-    from mic_tpu.parallel.multiframe import compress_multi_frame, decompress_multi_frame
-    from mic_tpu.tpu.ref_decode import decompress_mic2_device, decompress_mic2_frame_device
+    from mic.parallel.multiframe import compress_multi_frame, decompress_multi_frame
+    from mic.device.ref_decode import decompress_mic2_device, decompress_mic2_frame_device
 
     base = _image(rng, 40, 56)
     frames = [base]
@@ -141,14 +141,14 @@ def test_wsi_device_tile_region_level(rng):
     """Reference MIC3 serving on device (wsicompress.go:175-296): tile,
     region (cross-tile), and whole-level decodes must match the host
     tier byte-for-byte, RGB (YCoCg-R) and grey, edge crops included."""
-    from mic_tpu.parallel.wsi import (
+    from mic.parallel.wsi import (
         WSIOptions,
         compress_wsi,
         decompress_wsi_region,
         decompress_wsi_tile,
         read_wsi_header,
     )
-    from mic_tpu.tpu.ref_decode import (
+    from mic.device.ref_decode import (
         decompress_wsi_level_device,
         decompress_wsi_region_device,
         decompress_wsi_tile_device,

@@ -1,13 +1,12 @@
-"""Fused r-mode Pallas kernel (rANS + SoA-RLE expand + direct inverse in
-one program) — exactness against the host decoder on shapes small enough
-for interpret mode, across both stream families (FF 57 packed tables and
-FF 41 alias buckets) and all three r-predictors.
+"""r-mode device decode (entropy kernel → SoA-RLE expand → direct
+inverse) — exactness against the host decoder on shapes small enough
+for interpret mode, across both stream families (FF 57 and FF 41) and
+all three r-predictors.
 
-The expand phase's correctness hinges on monotone-consumption window
-invariants (runs/literals/values advance <= 128 per output row), so the
-fixtures deliberately include the adversarial run grammars: giant runs
-above midCount that split into chunks with short tails, length-1 literal
-stretches between minimum (3-long) same-runs, and short last strips.
+The fixtures deliberately include the adversarial run grammars: giant
+runs above midCount that split into chunks with short tails, length-1
+literal stretches between minimum (3-long) same-runs, and short last
+strips.
 Reference grammar: ops/rle.py soa_encode (parallelstrips.go's RLE
 re-laid-out for device decode).
 """
@@ -15,14 +14,14 @@ re-laid-out for device decode).
 import numpy as np
 import pytest
 
-import mic_tpu.tpu.strips as st
-from mic_tpu.ops.rle import soa_encode, soa_expand
+import mic.device.strips as st
+from mic.ops.rle import soa_encode, soa_expand
 
 
 def _roundtrip(px, w, h, pred, ent):
     blob = st.micw_compress(px, w, h, int(px.max()), predictor=pred,
                             entropy=ent)
-    out, ow, oh = st.micw_decompress_device_pallas(blob)
+    out, ow, oh = st.micw_decompress_device(blob)
     assert (ow, oh) == (w, h)
     np.testing.assert_array_equal(np.asarray(out).ravel(), px)
     return blob
@@ -46,15 +45,15 @@ def test_rle_fused_exact(pred, ent):
     _roundtrip(px, 128, 64, pred, ent)
 
 
-def test_rle_fused_equals_post_path(monkeypatch):
-    """MIC_RLE_FUSED=0 restores the packed-kernel + XLA expand path;
-    both must produce identical pixels from the same blob."""
+def test_rle_fused_equals_post_path():
+    """The device decode and the host decoder produce identical pixels
+    from the same blob."""
     px = _runs_image(3)
     blob = st.micw_compress(px, 128, 64, int(px.max()), predictor="zzr")
-    fused, _, _ = st.micw_decompress_device_pallas(blob)
-    monkeypatch.setenv("MIC_RLE_FUSED", "0")
-    post, _, _ = st.micw_decompress_device_pallas(blob)
-    np.testing.assert_array_equal(np.asarray(fused), np.asarray(post))
+    dev, _, _ = st.micw_decompress_device(blob)
+    host, _, _ = st.micw_decompress_host(blob)
+    np.testing.assert_array_equal(np.asarray(dev), np.asarray(host))
+    np.testing.assert_array_equal(np.asarray(dev), px)
 
 
 def test_rle_fused_giant_runs_chunk_split():
@@ -77,7 +76,7 @@ def test_rle_fused_giant_runs_chunk_split():
 def test_rle_fused_minimal_runs_dense_rows():
     """Alternating 3-long same-runs and 1-long literal stretches: the
     densest runs-per-row grammar (a 128-px row spans ~32 runs) — stress
-    for the windowed run-assignment compare."""
+    for the run-assignment search."""
     row = np.zeros(128, np.uint16)
     row[3::4] = (np.arange(32, dtype=np.uint16) % 7) * 11 + 1
     img = np.tile(row, (64, 1))
@@ -98,12 +97,12 @@ def test_rle_fused_short_last_strip():
     px = img.ravel()
     blob = st.micw_compress(px, 128, h, int(px.max()), num_strips=2,
                             predictor="pdr")
-    out, _, _ = st.micw_decompress_device_pallas(blob)
+    out, _, _ = st.micw_decompress_device(blob)
     np.testing.assert_array_equal(np.asarray(out).ravel(), px)
 
 
 def test_rle_fused_vdr_wide():
-    """vdr at width 256 (ws=2 row carry) through the fused kernel."""
+    """vdr at width 256 through the device decode."""
     rng = np.random.default_rng(7)
     img = np.zeros((32, 256), np.uint16)
     img[:, :160] = 1000
@@ -122,19 +121,17 @@ def test_auto_r_container_mixed_modes():
     px = img.ravel()
     blob = st.micw_compress(px, 128, 128, int(px.max()), num_strips=2,
                             predictor="auto-r", entropy="best")
-    out, _, _ = st.micw_decompress_device_pallas(blob)
+    out, _, _ = st.micw_decompress_device(blob)
     np.testing.assert_array_equal(np.asarray(out).ravel(), px)
     host, _, _ = st.micw_decompress_host(blob)
     np.testing.assert_array_equal(np.asarray(host).ravel(), px)
 
 
 def test_tiny_tablelog_strips_sweep_floor():
-    """Strips of tiny near-constant data encode with tableLog <= 6 —
-    below the Pallas table-sweep granularity (2^tl/128 tiles).  The
-    staging floors the GROUP tableLog at 7 and the builders tile the
-    smaller per-strip tables up (regression: pre-round-4 staging passed
-    the raw group max and decoded garbage via the fused kernels)."""
-    from mic_tpu.tpu.device_rans import mict_parse
+    """Strips of tiny near-constant data encode with tableLog <= 6 and
+    share a launch with larger tables (regression: an earlier staging
+    decoded them to garbage)."""
+    from mic.device.device_rans import mict_parse
 
     rng = np.random.default_rng(6)
     h, w = 16, 128
@@ -148,7 +145,7 @@ def test_tiny_tablelog_strips_sweep_floor():
                                 predictor=pred)
         _, _, _, _, _, _, _, strips = st.micw_parse(blob)
         seen_tls += [mict_parse(s[0])[1] for s in strips]
-        out, _, _ = st.micw_decompress_device_pallas(blob)
+        out, _, _ = st.micw_decompress_device(blob)
         np.testing.assert_array_equal(np.asarray(out).ravel(), px)
     assert min(seen_tls) <= 6, \
         f"fixture must exercise tiny tableLogs, got {seen_tls}"
@@ -159,7 +156,7 @@ def test_tiny_tablelog_strips_sweep_floor():
                                            (23, "pdr", "best")])
 def test_rle_fused_random_grammar(seed, pred, ent):
     """Seeded random run grammars (geometric run lengths, random values,
-    random literal stretches) through the fused device path — the
+    random literal stretches) through the device path — the
     randomized complement to the hand-built adversarial fixtures."""
     rng = np.random.default_rng(seed)
     h, w = 64, 128
@@ -190,35 +187,35 @@ def _stripe_image(w=256, h=32):
 
 def test_rdense_flag_set_and_worst_case_roundtrip():
     """New r-mode containers carry FLAG_RDENSE (same-runs >= 16 via
-    soa_encode min_same) and the 32-candidate dense expand decodes the
-    densest legal grammar bit-exactly."""
+    soa_encode min_same) and the device expand decodes the densest legal
+    grammar bit-exactly."""
     px = _stripe_image()
     blob = _roundtrip(px, 256, 32, "zzr", "standard")
     assert blob[22] & st.FLAG_RDENSE
 
 
 def test_rdense_legacy_blob_uses_window_path():
-    """A flag-stripped (pre-v6 grammar) blob still decodes through the
-    legacy 384-window expand — mixed archives stay correct."""
+    """A flag-stripped (pre-v6 grammar) blob still decodes — the expand
+    does not depend on the flag, so mixed archives stay correct."""
     px = _stripe_image()
     blob = bytearray(st.micw_compress(px, 256, 32, int(px.max()),
                                       predictor="zzr", entropy="standard"))
     blob[22] &= ~st.FLAG_RDENSE
-    out, ow, oh = st.micw_decompress_device_pallas(bytes(blob))
+    out, ow, oh = st.micw_decompress_device(bytes(blob))
     np.testing.assert_array_equal(np.asarray(out).ravel(), px)
 
 
-def test_rdense_kill_switch(monkeypatch):
-    """MIC_RLE_DENSE=0 forces the legacy window path on dense blobs."""
-    import jax
-
+def test_rdense_kill_switch():
+    """Dense and flag-stripped copies of one blob decode together in one
+    plan, to the same pixels."""
     px = _stripe_image()
     blob = st.micw_compress(px, 256, 32, int(px.max()), predictor="zzr",
                             entropy="standard")
-    monkeypatch.setenv("MIC_RLE_DENSE", "0")
-    jax.clear_caches()
-    out, _, _ = st.micw_decompress_device_pallas(blob)
-    np.testing.assert_array_equal(np.asarray(out).ravel(), px)
+    legacy = bytearray(blob)
+    legacy[22] &= ~st.FLAG_RDENSE
+    outs = st.micw_decode_many([blob, bytes(legacy)])
+    for out, _, _ in outs:
+        np.testing.assert_array_equal(np.asarray(out).ravel(), px)
 
 
 def test_rdense_long_run_balanced_split():

@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from mic_tpu.ops.deltarle import (
+from mic.ops.deltarle import (
     delta_rle_compress,
     delta_rle_decompress,
     grad_delta_rle_compress,
@@ -12,7 +12,7 @@ from mic_tpu.ops.deltarle import (
     zz_delta_rle_compress,
     zz_delta_rle_decompress,
 )
-from mic_tpu.ops.predictors import (
+from mic.ops.predictors import (
     delta_compress,
     delta_decompress,
     delta_zz_compress,
@@ -26,7 +26,7 @@ from mic_tpu.ops.predictors import (
     unzigzag,
     zigzag,
 )
-from mic_tpu.ops.rle import rle_compress, rle_decompress
+from mic.ops.rle import rle_compress, rle_decompress
 
 PREDICTOR_CODECS = [
     (delta_compress, delta_decompress),

@@ -4,7 +4,7 @@ variant must be pixel-exact (reference fseu16_test.go:381-470)."""
 import numpy as np
 import pytest
 
-from mic_tpu.models.single_frame import (
+from mic.models.single_frame import (
     compress_single_frame,
     compress_single_frame_4state,
     compress_single_frame_8state,
@@ -59,7 +59,7 @@ def test_constant_image_fallback(rng):
     """Constant frame: FSE rejects with UseRLE all the way down — the
     single-frame API propagates the error like the reference."""
     px = np.full(64 * 64, 7, np.uint16)
-    from mic_tpu.ops.fse import UseRLEError, IncompressibleError
+    from mic.ops.fse import UseRLEError, IncompressibleError
 
     try:
         blob = compress_single_frame(px, 64, 64, 7)
@@ -84,7 +84,7 @@ def test_residual_frame_tiny_max(rng):
     Tiny inputs may still be rejected by the entropy stage (reference
     parity); what must never happen is a *wrong* roundtrip.
     """
-    from mic_tpu.ops.fse import IncompressibleError, UseRLEError
+    from mic.ops.fse import IncompressibleError, UseRLEError
 
     for mx in [1, 3, 6, 15]:
         res = rng.integers(0, mx + 1, 65536).astype(np.uint16)

@@ -5,7 +5,7 @@ gapremovalcompressu16_test.go)."""
 import numpy as np
 import pytest
 
-from mic_tpu.models.wavelet_pipeline import (
+from mic.models.wavelet_pipeline import (
     wavelet_fse_compress,
     wavelet_fse_decompress,
     wavelet_rle_fse_compress,
@@ -14,12 +14,12 @@ from mic_tpu.models.wavelet_pipeline import (
     wavelet_v2_rle_fse_decompress,
     wavelet_v2_simd_rle_fse_compress,
 )
-from mic_tpu.ops.gapremoval import (
+from mic.ops.gapremoval import (
     compress_single_frame_gap_removal,
     decompress_single_frame_gap_removal,
 )
-from mic_tpu.ops.huffman import can_huffman_compress, can_huffman_decompress
-from mic_tpu.ops.wavelet import (
+from mic.ops.huffman import can_huffman_compress, can_huffman_decompress
+from mic.ops.wavelet import (
     coeffs_to_u16,
     collect_subband_order,
     scatter_subband_order,
@@ -121,7 +121,7 @@ def test_huffman_max_code_len(rng):
 
 def test_huffman_on_delta_rle(mr_image):
     """Delta+RLE+Huffman pipeline (reference rlehuffdecompressu16.go path)."""
-    from mic_tpu.ops.deltarle import delta_rle_compress, delta_rle_decompress
+    from mic.ops.deltarle import delta_rle_compress, delta_rle_decompress
 
     px, h, w, mx = mr_image
     rle = delta_rle_compress(px, w, h, mx)

@@ -40,13 +40,13 @@ def test_manifest_files_exist(manifest):
 
 
 def test_testdata_decodes_bitexact_python_tier(manifest):
-    from mic_tpu.models.rgb import decompress_rgb
-    from mic_tpu.models.single_frame import decompress_single_frame
-    from mic_tpu.parallel.multiframe import decompress_multi_frame
-    from mic_tpu.parallel.strips import decompress_parallel_strips
-    from mic_tpu.parallel.strips_adaptive import decompress_parallel_strips_adaptive
-    from mic_tpu.parallel.wsi import decompress_wsi_region, read_wsi_header
-    from mic_tpu.utils.io import read_mic1, read_micr
+    from mic.models.rgb import decompress_rgb
+    from mic.models.single_frame import decompress_single_frame
+    from mic.parallel.multiframe import decompress_multi_frame
+    from mic.parallel.strips import decompress_parallel_strips
+    from mic.parallel.strips_adaptive import decompress_parallel_strips_adaptive
+    from mic.parallel.wsi import decompress_wsi_region, read_wsi_header
+    from mic.utils.io import read_mic1, read_micr
 
     for c in manifest:
         blob = (WEB / "testdata" / c["file"]).read_bytes()
@@ -74,11 +74,11 @@ def test_testdata_decodes_bitexact_python_tier(manifest):
             got_b = decompress_wsi_region(blob, 0, 0, 0, hdr.width, hdr.height)
             got = np.frombuffer(got_b, dtype=np.uint8 if c.get("channels") == 3 else "<u2")
         elif kind == "micw":
-            from mic_tpu.tpu.strips import micw_decompress_host
+            from mic.device.strips import micw_decompress_host
 
             got = micw_decompress_host(blob)[0]
         elif kind == "mwr3":
-            from mic_tpu.tpu.rgb_device import micwr_decompress_host
+            from mic.device.rgb_device import micwr_decompress_host
 
             got = micwr_decompress_host(blob)[0]
         else:

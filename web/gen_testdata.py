@@ -17,21 +17,21 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from mic_tpu.models.rgb import compress_rgb  # noqa: E402
-from mic_tpu.models.single_frame import (  # noqa: E402
+from mic.models.rgb import compress_rgb  # noqa: E402
+from mic.models.single_frame import (  # noqa: E402
     compress_single_frame,
     compress_single_frame_4state,
     compress_single_frame_8state,
     compress_single_frame_rans8,
 )
-from mic_tpu.parallel.multiframe import compress_multi_frame  # noqa: E402
-from mic_tpu.parallel.strips import (  # noqa: E402
+from mic.parallel.multiframe import compress_multi_frame  # noqa: E402
+from mic.parallel.strips import (  # noqa: E402
     compress_parallel_strips_4state,
     compress_parallel_strips_8state,
 )
-from mic_tpu.parallel.strips_adaptive import compress_parallel_strips_adaptive  # noqa: E402
-from mic_tpu.parallel.wsi import WSIOptions, compress_wsi  # noqa: E402
-from mic_tpu.utils.io import write_mic1, write_micr  # noqa: E402
+from mic.parallel.strips_adaptive import compress_parallel_strips_adaptive  # noqa: E402
+from mic.parallel.wsi import WSIOptions, compress_wsi  # noqa: E402
+from mic.utils.io import write_mic1, write_micr  # noqa: E402
 
 REF = Path("/root/reference/testdata")
 OUT = Path(__file__).resolve().parent / "testdata"
@@ -101,9 +101,9 @@ def main() -> int:
             "mic3", px.astype("<u2"), width=w, height=h, channels=1)
 
     # Device formats: MICW, MWR3, device MIC2 (independent + temporal) —
-    # the JS decoder covers the TPU tier's containers too.
-    from mic_tpu.parallel.multiframe import compress_multi_frame_device
-    from mic_tpu.tpu.strips import micw_compress
+    # the JS decoder covers the device tier's containers too.
+    from mic.parallel.multiframe import compress_multi_frame_device
+    from mic.device.strips import micw_compress
 
     for nm, px, w, h, mx in images:
         add(f"{nm}_dev.micw", micw_compress(px, w, h, mx), "micw",
@@ -126,7 +126,7 @@ def main() -> int:
     if images:
         # FLAG_BANDED container: widths > 512 divisible by 512 store
         # stacked column bands + an 8-byte orig-dims extension; the JS
-        # decoder must un-band (ADVICE r3 high).
+        # decoder must un-band.
         nm, px, w, h, mx = images[-1]
         img = px.reshape(h, w)
         wide = np.hstack([img, np.fliplr(img)])
@@ -146,7 +146,7 @@ def main() -> int:
             "mic2", exp, width=w, height=h, frames=3)
     tis2 = REF / "wsi_tissue_512x384.rgb"
     if tis2.exists():
-        from mic_tpu.tpu.rgb_device import micwr_compress
+        from mic.device.rgb_device import micwr_compress
 
         rgb = np.fromfile(tis2, dtype=np.uint8)
         add("tissue_dev.mwr3", micwr_compress(rgb, 512, 384), "mwr3",

@@ -2,7 +2,7 @@
  * mic-decoder.js — zero-dependency browser/JS decoder for the MIC format
  * family (the delivery-tier analog of the reference web/mic-decoder.js,
  * re-implemented from the format contract in docs/formats.md and the
- * mic_tpu host tier; reference behaviors cited per function).
+ * mic host tier; reference behaviors cited per function).
  *
  * Scope (matches the reference JS decoder, plus rANS-8 and PICA):
  *   entropy: FSE 1/2/4/8-state auto-dispatch (fse2state.go:96-116),
@@ -1169,7 +1169,7 @@ function micwParse(bytes) {
 }
 
 /** MICW's RLE midCount: delimiter-derived, floored at 255
- * (tpu/strips.py _rle_mid). */
+ * (mic/device/strips.py _rle_mid). */
 function micwMid(maxValue) {
   const depth = maxValue === 0 ? 0 : highBit(maxValue) + 1;
   let delim = (1 << depth) - 1;
@@ -1177,7 +1177,7 @@ function micwMid(maxValue) {
   return (1 << highBit(delim)) - 1;
 }
 
-/** Decode a MICW container to pixels (tpu/strips.py
+/** Decode a MICW container to pixels (mic/device/strips.py
  * micw_decompress_host).  Strip modes: 0 legacy-global, 1 raw, 2 zzd,
  * 3 zz+SoA-RLE, 4 avg+SoA-RLE, 5 constant, 6 vdd. */
 function decodeMICW(bytes) {
@@ -1244,8 +1244,8 @@ function decodeMICW(bytes) {
 
 /** MWR3 device RGB: magic | w | h | 3 x len u32 | 3 MICW plane blobs
  * (Y, ZigZag Co, ZigZag Cg).  A plane blob's own MICW width may exceed
- * the container width (columns edge-padded to a multiple of 128 so the
- * fused TPU kernels stay eligible); crop each decoded plane back. */
+ * the container width (columns edge-padded to a multiple of 128, which
+ * an earlier device kernel needed); crop each decoded plane back. */
 function decodeMWR3(bytes) {
   const width = readU32(bytes, 4);
   const height = readU32(bytes, 8);
